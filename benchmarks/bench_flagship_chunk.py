@@ -1,7 +1,6 @@
 """Expander-walk chunk sweep at the flagship config (cap=64, n=50).
 
-The flagship stage breakdown puts ~1.5 ms of the ~3.5 ms step in the
-expander while_loop. Each walk round pays one full-grid pass (gram
+The expander while_loop is a share of the flagship step. Each walk round pays one full-grid pass (gram
 cap x N per GP + rank-1 cross terms, ~chunk-weakly-dependent) — so if
 the walk runs multiple rounds, a larger chunk trades a slightly
 heavier round for fewer rounds with BIT-IDENTICAL results (the visit
@@ -19,7 +18,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_bench")
+from safeopt_tpu.config import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from safeopt_tpu import linearly_spaced_combinations
@@ -57,7 +58,7 @@ def walk_rounds(chunk):
     with jax.default_matmul_precision(MATMUL_PRECISION):
         valid = jnp.ones((N,), bool)
         Q, mus, sigmas, Vs = core._confidence_intervals(
-            kernels, states, grid_dev, BETA, use_pallas=True)
+            kernels, states, grid_dev, BETA)
         S, M, cand, width, has_safe = core._classify(
             Q, fmin, scaling, threshold, BETA, valid)
         unsafe = valid & ~S
@@ -71,7 +72,7 @@ def walk_rounds(chunk):
             vmask = jnp.arange(chunk) < min(chunk, order.shape[0] - p)
             pred = core._chunk_expander_predicate(
                 kernels, states, grid_dev, Q, unsafe, mus, sigmas, Vs,
-                fmin, BETA, None, gidx, vmask, use_pallas=True)
+                fmin, BETA, None, gidx, vmask)
             rounds += 1
             if bool(jnp.any(pred)):
                 break
@@ -82,8 +83,7 @@ def timed_step(chunk, reps):
     def body(i, carry):
         b, acc = carry
         r = core.safeopt_step(kernels, states, grid_dev * b, fmin, BETA,
-                              scaling, threshold, chunk=chunk,
-                              use_pallas=True)
+                              scaling, threshold, chunk=chunk)
         tot = (r.next_idx.astype(jnp.float32)
                + r.safe_count.astype(jnp.float32) + jnp.max(r.Q))
         return b + (tot % 2) * 1e-12, acc + tot

@@ -22,7 +22,7 @@ def g_dev(x):
 
 args = dict(
     objectives=(f_dev, g_dev), n_iter=20, noise_std=0.02,
-    chunk=64, use_pallas=True)
+    chunk=64)
 call = lambda key: run_safeopt_loop(
     (gp_f.kern, gp_g.kern), (gp_f.state, gp_g.state), grid,
     jnp.asarray([0.2, 0.5], dtype), jnp.asarray(2.0, dtype),

@@ -21,7 +21,7 @@ def run(side, chunk, reps=10):
     grid = jnp.asarray(linearly_spaced_combinations([(-5.,5.),(-5.,5.)], side), dtype)
     def step():
         return safeopt_step(kernels, states, grid, fmin, beta, scaling,
-                            threshold, chunk=chunk, use_pallas=True)
+                            threshold, chunk=chunk)
     r = step(); jax.block_until_ready(r)
     t0 = time.perf_counter()
     for _ in range(reps): r = step()

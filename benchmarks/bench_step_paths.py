@@ -27,7 +27,6 @@ def run(tag, **kw):
     jax.block_until_ready(r)
     print(f"{tag}: {(time.perf_counter()-t0)/10*1e3:.2f} ms  (G any={bool(np.asarray(r.G).any())})", flush=True)
 
-run("ucb xla    ", ucb=True, use_pallas=False)
-run("ucb pallas ", ucb=True, use_pallas=True)
-run("full xla   ", ucb=False, use_pallas=False, chunk=64)
-run("full pallas", ucb=False, use_pallas=True, chunk=64)
+
+run("ucb (no expander walk)", ucb=True)
+run("full                  ", ucb=False, chunk=64)

@@ -1,11 +1,11 @@
-"""Measure exact top-k strategies over a 1e6-point grid on the TPU.
+"""Measure exact top-k strategies over a 1e6-point grid on the device.
 
-The fused SafeOpt step spends a measured ~4.3 ms in every full-grid
-``lax.top_k`` (XLA lowers one long row to a monolithic sort-based
-select).  Candidate replacement: a two-level *exact* hierarchy —
+The fused SafeOpt step runs full-grid ``lax.top_k`` selects (XLA may
+lower one long row to a monolithic sort-based select). Candidate
+replacement: a two-level *exact* hierarchy —
 reshape the (padded) key row-major to (R, C), per-row ``top_k`` of k,
 then one merge ``top_k`` of k over the R*k survivors.  Per-row calls
-vectorize across the sublane axis and the merge input is tiny, so both
+vectorize across rows and the merge input is tiny, so both
 levels are cheap; exactness and tie order are preserved (see
 safeopt_tpu/ops/topk.py).
 
@@ -22,7 +22,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_bench")
+from safeopt_tpu.config import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 N = 1_000_000

@@ -24,10 +24,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_bench")
+from safeopt_tpu.config import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
-sys.path.insert(0, "/root/repo")
 import bench  # noqa: E402
 
 from safeopt_tpu.ops.topk import partial_top_k

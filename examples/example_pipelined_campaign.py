@@ -1,7 +1,6 @@
-"""Pipelined lag-1 SafeOptSwarm campaign (tunnel-latency overlap).
+"""Pipelined lag-1 SafeOptSwarm campaign (result-pull overlap).
 
-Over a remote accelerator every blocking ``optimize()`` pays a full
-device->host round trip; for plants that can evaluate query t while
+Every blocking ``optimize()`` pays a device->host round trip; for plants that can evaluate query t while
 the optimizer computes query t+1 (the lag-1 / delayed-feedback
 setting), ``run_lagged_campaign(pipelined=True)`` overlaps the result
 pull and the plant evaluation with the next iteration's device

@@ -1,4 +1,4 @@
-"""safeopt_tpu — TPU-native safe Bayesian optimization.
+"""safeopt_tpu — accelerator-native safe Bayesian optimization in JAX.
 
 A from-scratch JAX framework with the capabilities of befelix/SafeOpt:
 

@@ -1,6 +1,6 @@
 """Shared bookkeeping for safe Bayesian optimization algorithms.
 
-TPU-native counterpart of the reference base class
+Accelerator-native counterpart of the reference base class
 (/root/reference/safeopt/gp_opt.py:30-279). Semantics preserved:
 
 - multi-GP container: ``gps[0]`` is the objective, the rest are safety

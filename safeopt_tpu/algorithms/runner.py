@@ -6,9 +6,8 @@ whenever the objective is computable on the accelerator (simulation,
 surrogate benchmarking, self-play tuning, batch re-optimization), the
 entire loop — fused SafeOpt iteration, observation, exact O(n^2) model
 update — can run as ONE compiled program under ``lax.scan``: zero
-host round trips between iterations. On a remote TPU that amortizes
-the ~5 ms dispatch + pull latency across the whole run; on directly
-attached hardware it removes the Python driver entirely.
+host round trips between iterations. It amortizes the dispatch + pull
+latency across the whole run and removes the Python driver entirely.
 
 New capability (no reference counterpart): the reference cannot
 express this — every GPy refit is a host-side object mutation.
@@ -42,13 +41,12 @@ class BOLoopResult(NamedTuple):
 
 
 @partial(jax.jit, static_argnames=("objectives", "n_iter", "ucb",
-                                   "use_lipschitz", "chunk", "use_pallas"))
+                                   "use_lipschitz", "chunk"))
 @with_matmul_precision
 def run_safeopt_loop(kernels, states, grid, fmin, beta, scaling, threshold,
                      key, *, objectives: Tuple[Callable, ...], n_iter: int,
                      lipschitz=None, noise_std=0.0, ucb: bool = False,
                      use_lipschitz: bool = False, chunk: int = 64,
-                     use_pallas: bool = False,
                      objective_args=None, contexts=None,
                      betas=None, it_keys=None) -> BOLoopResult:
     """Run ``n_iter`` complete SafeOpt iterations on device.
@@ -111,8 +109,7 @@ def run_safeopt_loop(kernels, states, grid, fmin, beta, scaling, threshold,
                       jnp.broadcast_to(ctx_t, (grid.shape[0], nc))))
         result = safeopt_step(kernels, states, grid_t, fmin, beta_t,
                               scaling, threshold, lipschitz, ucb=ucb,
-                              use_lipschitz=use_lipschitz, chunk=chunk,
-                              use_pallas=use_pallas)
+                              use_lipschitz=use_lipschitz, chunk=chunk)
         x = jnp.take(grid_t, result.next_idx, axis=0)        # (d,)
         noise = noise_std * jax.random.normal(it_key, (num_gps,),
                                               dtype=dtype)

@@ -1,6 +1,6 @@
 """Constrained particle-swarm optimization as a single fused scan.
 
-TPU-native counterpart of the reference PSO engine
+Accelerator-native counterpart of the reference PSO engine
 (/root/reference/safeopt/swarm.py:17-146). The reference runs 100
 Python-loop iterations, each doing a full fitness callback — here the
 whole run is one ``lax.scan`` whose body fuses the velocity/position

@@ -1,4 +1,4 @@
-"""In-repo TPU-native GP engine (replaces the reference's GPy dependency)."""
+"""In-repo GP engine (replaces the reference's GPy dependency)."""
 
 from .hyperopt import fit_hyperparameters, log_marginal_likelihood
 from .kernels import (RBF, Matern32, Matern52, Exponential, RatQuad,

@@ -8,9 +8,9 @@ noise reach kappa(K) ~ 1e7+, where f32 factorization loses every digit
 or hits negative pivots (NaN), silently emptying the safe set.
 
 The factor is O(n^2) state over n <= a few hundred observations, so the
-TPU-native design computes it on the host in NumPy/SciPy float64
+design computes it on the host in NumPy/SciPy float64
 (microseconds) and ships the small f32-cast factors to the device; all
-O(N) grid work stays on the TPU. This mirrors the reference's
+O(N) grid work stays on the device. This mirrors the reference's
 effective precision (GPy is float64 LAPACK) at zero device cost.
 
 Used by ``GPRegression``; the pure-JAX device functions in

@@ -128,7 +128,7 @@ def fit_hyperparameters(kernel, X, Y, noise_var: float, *,
 
     # Float64 island (CLAUDE.md invariant): the whole optimization —
     # gram, Cholesky, Adam state — runs in f64 even when the session
-    # default is f32 (TPU sessions leave jax_enable_x64 off).
+    # default is f32 (GPU sessions leave jax_enable_x64 off).
     with jax.enable_x64(True):
         X = jnp.asarray(np.asarray(X, dtype=np.float64), jnp.float64)
         Y = jnp.asarray(np.asarray(Y, dtype=np.float64).reshape(-1, 1),
@@ -214,29 +214,24 @@ def fit_hyperparameters(kernel, X, Y, noise_var: float, *,
             params_b = jax.tree_util.tree_map(lambda v: v[None], params)
             runner = jax.jit(jax.vmap(run))
 
-        # Device routing, MEASURED (bench.py hyperopt section, round
-        # 5): the LML objective is (n, n) factor math — far below MXU
-        # shapes — and an Adam scan of hundreds of tiny steps, so the
-        # host CPU wins end-to-end over a remote accelerator for the
-        # bench shapes (n<=512): per-step dispatch+sync overheads and
-        # a much slower small-matrix f64 path dominate any compute win.
+        # Device routing: the LML objective is (n, n) factor math and
+        # an Adam scan of hundreds of tiny steps, so per-step dispatch
+        # overheads dominate any compute win on an accelerator at BO
+        # shapes (n<=512); the GPU route has not been measured yet.
         # 'auto' therefore routes to the CPU when one is registered;
-        # 'accel' (used by the bench to keep the comparison honest)
-        # leaves the backend default in charge.
+        # 'accel' leaves the backend default in charge.
         if device not in ("auto", "cpu", "accel"):
             raise ValueError("device must be 'auto', 'cpu' or 'accel', "
                              f"got {device!r}")
         if device == "accel" and restarts > 0:
-            # Measured round 5 (v5e/libtpu): the vmapped
-            # (restarts+1)-way LML scan batch crashes the TPU worker
-            # process outright (kernel fault on the batched cholesky
-            # scan; a single run executes fine). Refuse rather than
-            # kill the caller's session.
+            # The vmapped (restarts+1)-way LML scan batch (a batched
+            # Cholesky inside a scan) has not been run on the GPU yet;
+            # refuse it until it is measured there.
             raise ValueError(
                 "device='accel' with restarts>0 batches the LML scans "
-                "via vmap, which crashes the TPU runtime on this "
-                "stack; use device='auto'/'cpu' (the measured-faster "
-                "route) or loop single accel fits manually")
+                "via vmap, which has not yet been run on this device; "
+                "use device='auto'/'cpu' or loop single accel fits "
+                "manually")
         cpu = None
         if device in ("auto", "cpu"):
             try:

@@ -1,4 +1,4 @@
-"""Covariance kernels for the TPU-native GP engine.
+"""Covariance kernels for the in-repo GP engine.
 
 Implements the closed set of kernel features the reference consumes from
 GPy (see /root/reference/safeopt/gp_opt.py:83,847,1093 and
@@ -15,8 +15,8 @@ active_dims) is static aux data — so a kernel can be passed straight
 into ``jit``-compiled functions and the compilation caches on structure
 only.
 
-Gram construction is expressed so XLA maps the inner product onto the
-MXU: scaled squared distances via ``|x|^2 + |z|^2 - 2 x.z^T`` where the
+Gram construction is expressed so XLA maps the inner product onto a
+matmul: scaled squared distances via ``|x|^2 + |z|^2 - 2 x.z^T`` where the
 cross term is a single matmul over the (batch, dim) operands.
 """
 
@@ -132,7 +132,7 @@ class _Stationary(Kernel):
     def _r2(self, X, X2=None) -> jnp.ndarray:
         Xs = self._scaled(X)
         Zs = Xs if X2 is None else self._scaled(X2)
-        # |x|^2 + |z|^2 - 2 x.z^T : the cross term is one MXU matmul.
+        # |x|^2 + |z|^2 - 2 x.z^T : the cross term is one matmul.
         xn = jnp.sum(Xs * Xs, axis=1, keepdims=True)
         zn = jnp.sum(Zs * Zs, axis=1, keepdims=True)
         cross = Xs @ Zs.T
@@ -193,8 +193,8 @@ class Matern52(_Stationary):
     New capability beyond the reference's consumed surface (SURVEY.md
     section 2.8 lists RBF / Matern-3/2), provided because it is the
     other stationary kernel GPy users reach for; participates in ARD,
-    active_dims, products, hyperparameter fitting, the host f64 island
-    and the fused Pallas paths like the other stationary kernels.
+    active_dims, products, hyperparameter fitting and the host f64
+    island like the other stationary kernels.
     """
 
     def _K_of_r2(self, r2: jnp.ndarray) -> jnp.ndarray:
@@ -211,8 +211,8 @@ class Exponential(_Stationary):
 
     Beyond the reference's consumed surface (SURVEY.md section 2.8);
     matches GPy.kern.Exponential. Participates in ARD, active_dims,
-    sums/products, hyperparameter fitting, the host f64 island and the
-    fused Pallas paths like the other stationary kernels.
+    sums/products, hyperparameter fitting and the host f64 island like
+    the other stationary kernels.
     """
 
     def _K_of_r2(self, r2: jnp.ndarray) -> jnp.ndarray:
@@ -227,8 +227,7 @@ class RatQuad(_Stationary):
     Matches GPy.kern.RatQuad (a scale mixture of RBFs; ``power`` is
     the mixture concentration). Beyond the reference's consumed
     surface. ``power`` is a traced pytree leaf like the other
-    hyperparameters, so hyperopt fits it; runs on the exact XLA path
-    (not in the fused Pallas kind set).
+    hyperparameters, so hyperopt fits it.
     """
 
     def __init__(self, input_dim, variance=1.0, lengthscale=None,
@@ -267,9 +266,8 @@ class Cosine(_Stationary):
     useful for signals with one known dominant frequency; for
     periodic-plus-decay structure prefer ``Cosine * RBF`` or
     ``StdPeriodic``). Participates in active_dims, sums/products,
-    hyperparameter fitting, the host f64 island, the native C++
-    engine and the fused Pallas paths like the other stationary
-    kernels.
+    hyperparameter fitting, the host f64 island and the native C++
+    engine like the other stationary kernels.
 
     Restricted to ``input_dim == 1``: ``cos(|x - z|)`` is a valid
     (positive-semidefinite) covariance only in 1-D — in higher
@@ -310,8 +308,7 @@ class StdPeriodic(Kernel):
     ``lengthscale`` (GPy's flags). All three hyperparameters are
     traced pytree leaves, so hyperopt fits them (period in log space
     like the rest). Stationary in x - z but not a function of
-    Euclidean distance, so it runs on the exact XLA path (excluded
-    from the fused Pallas kind set); the per-dimension difference
+    Euclidean distance; the per-dimension difference
     accumulation below never materializes an (N, M, d) tensor.
     """
 
@@ -391,8 +388,7 @@ class Linear(Kernel):
     ``ARD`` makes ``variances`` per-dimension (GPy's plural spelling is
     kept). ``variances`` is a traced pytree leaf, so hyperopt fits it
     in log space like every other hyperparameter. Non-stationary, so
-    it runs on the exact XLA path (excluded from the fused Pallas kind
-    set via ``supports_kernel``); the cross term is one MXU matmul.
+    it runs on the exact XLA path; the cross term is one matmul.
 
     Note its prior variance ``Kdiag(x) = sum_j variances_j x_j^2``
     vanishes at the origin: ``scaling='auto'`` (prior std at the
@@ -455,9 +451,7 @@ class Poly(Kernel):
     polynomial trends. ``variance``, ``scale`` and ``bias`` are traced
     pytree leaves fitted in log space by hyperopt; ``order`` is static
     structure (it changes the function class, and GPy likewise never
-    optimizes it). Non-stationary, so it runs on the exact XLA path
-    (excluded from the fused Pallas kind set via ``supports_kernel``);
-    the inner product is one MXU matmul.
+    optimizes it). Non-stationary; the inner product is one matmul.
 
     Like Linear, its prior variance at the origin is ``variance *
     bias^order`` — ``scaling='auto'`` therefore requires ``bias > 0``.
@@ -528,7 +522,7 @@ class MLP(Kernel):
     one-hidden-layer erf network (Williams 1998). Beyond the
     reference's consumed surface. All three hyperparameters are traced
     pytree leaves fitted in log space. Non-stationary, so it runs on
-    the exact XLA path; the weighted inner products are MXU matmuls.
+    the exact XLA path; the weighted inner products are matmuls.
     """
 
     def __init__(self, input_dim, variance=1.0, weight_variance=1.0,
@@ -623,8 +617,7 @@ class White(_Stationary):
     ``K(X, X2) = 0`` across two sets — white noise is uncorrelated
     between any two (even coincident) distinct points, so it only adds
     prior variance on the diagonal. Summed into a kernel it acts like
-    extra observation noise that also appears in ``Kdiag``. Excluded
-    from the fused Pallas paths (the XLA path handles it exactly).
+    extra observation noise that also appears in ``Kdiag``.
     """
 
     def __init__(self, input_dim, variance=1.0, active_dims=None,

@@ -17,8 +17,8 @@ the fused device pipeline consumes —
 
 — i.e. a ``GPState`` whose "training inputs" are the m inducing points
 and whose "triangular inverse" is the pseudo-factor R. Every consumer
-(fused Pallas kernels, the expander's rank-1 conditioning, multi-chip
-sharding, SafeOpt/SafeOptSwarm) runs unchanged on it. The expander's
+(the fused step's interval pass, the expander's rank-1 conditioning,
+multi-chip sharding, SafeOpt/SafeOptSwarm) runs unchanged on it. The expander's
 virtual-observation update becomes the conditioning of the DTC
 posterior process (a principled approximation; exact when Z = X).
 
@@ -89,9 +89,7 @@ class SparseGPRegression:
         unaffected, only ``Kdiag`` gains the floor), while the
         data-model kernel stays at ``self.kern_base`` for
         hyperopt/LML. Calibration costs one extra O((2m)^2 n) build
-        per full refit and is skipped at ``c = 0``. Note: a ``White``
-        summand routes SafeOpt's auto ``use_pallas`` to the XLA
-        interval path (measured equal at small capacities).
+        per full refit and is skipped at ``c = 0``.
     calibration : 'max' or float in (0, 1]
         Statistic of the per-training-point mean-convergence error
         ``|mu_m(X_i) - mu_2m(X_i)|`` the floor is sized to. ``'max'``
@@ -99,12 +97,12 @@ class SparseGPRegression:
         sparse-data-region training point with a large (and therefore
         high-variance, already-guarded) error inflates the floor
         everywhere, forfeiting large tracts of the exact safe set as
-        conservative drift (measured 47% at m=64/c=1 on the bench
-        configuration, VERDICT r4). A float q uses the q-quantile
+        conservative drift (47% of the exact safe set at m=64/c=1 on
+        the bench configuration). A float q uses the q-quantile
         instead (e.g. ``0.99``), trimming those outliers; the bench
         (m x c x statistic) sweep picks the shipped recommendation by
         *optimistic drift == 0 first, then minimal conservative
-        drift* (docs/design.md, sparse floor sweep).
+        drift* (bench.py ``sparse_m_sweep``).
     """
 
     def __init__(self, X, Y, kernel: Optional[Kernel] = None,
@@ -189,7 +187,7 @@ class SparseGPRegression:
         ``floor = (c * delta)^2``. One extra O((2m)^2 n) build; the
         danger it guards against — knife-edge optimistic flips from
         DTC mean error in data-dense regions — scales with exactly
-        this quantity (docs/design.md, sparse drift study)."""
+        this quantity."""
         self._floor = 0.0
         self.kern = self._kern_base        # plain view for the probe
         if not self._conservative or self._X.shape[0] <= self._m:
@@ -276,10 +274,8 @@ class SparseGPRegression:
         evals, evecs = np.linalg.eigh(B)
         evals = np.maximum(evals, 0.0)
         R0 = (evecs * np.sqrt(evals)) @ evecs.T       # symmetric sqrt
-        # The GPState contract requires a LOWER-TRIANGULAR pseudo-factor:
-        # the fused interval kernel's blocked multiply skips the
-        # strictly-upper tile products (_tri_matmul), which silently
-        # drops half of a dense factor once m spans >1 MXU tile. Any
+        # The GPState contract requires a LOWER-TRIANGULAR pseudo-factor
+        # (Linv, like the exact model's inverse Cholesky factor). Any
         # R with R^T R = B preserves the posterior (var = kdiag -
         # k^T B k), so take the QL decomposition of the symmetric root:
         # R0 = Q L  =>  L^T L = R0^T R0 = B, with L lower-triangular.
@@ -366,8 +362,8 @@ class SparseGPRegression:
         Host float64 throughout: the pseudo-factor is the f64 ``_R``,
         not the (session-dtype) device state's — in a float32 session
         the two differ and this method's exactness contract
-        ("host-f64 predict is always exact for the model",
-        docs/design.md) depends on the f64 one.
+        "host-f64 predict is always exact for the model") depends on
+        the f64 one.
         """
         Xq = np.atleast_2d(np.asarray(Xq, dtype=np.float64))
         kz = np_kernel(self.kern, self.Z, Xq)             # (m, q)
@@ -411,9 +407,9 @@ class SparseGPRegression:
         (``SafeOpt(exact_boundaries=True)``).  "Exact" here means exact
         FOR THE DTC MODEL: the certified decision is the one the host
         f64 sparse posterior makes, so the float32 noise of the device
-        pseudo-factor (see docs/design.md, sparse conditioning note)
-        never flips a knife-edge safe bit — approximation error vs the
-        exact GP is a separate, m-controlled quantity.
+        pseudo-factor (see ``SafeOpt``'s ``boundary_band``) never flips
+        a knife-edge safe bit — approximation error vs the exact GP is a
+        separate, m-controlled quantity.
         """
         mu, var = self.predict_noiseless(Xq)
         return mu.ravel(), var.ravel()

@@ -1,5 +1,5 @@
-"""Pallas TPU kernels for the hot compute paths."""
+"""Device operations shared by the hot compute paths."""
 
-from .fused_posterior import fused_intervals, supports_kernel
+from .topk import partial_top_k
 
-__all__ = ["fused_intervals", "supports_kernel"]
+__all__ = ["partial_top_k"]

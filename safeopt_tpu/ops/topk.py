@@ -1,8 +1,8 @@
-"""Exact partial top-k tuned for long rows on TPU.
+"""Exact partial top-k for long rows.
 
-``jax.lax.top_k`` over one 1e6-element row lowers to a monolithic
-sort-based select that costs a measured ~4.3 ms on a v5e — regardless
-of ``k`` — and the fused SafeOpt step (safe_opt_core.py) needs such a
+``jax.lax.top_k`` over one 1e6-element row may lower to a monolithic
+sort-based select whose cost does not depend on ``k``, and the fused
+SafeOpt step (safe_opt_core.py) needs such a
 select for the expander visit order (reference
 /root/reference/safeopt/gp_opt.py:542-552) and for the certified
 boundary triage. ``partial_top_k`` replaces it with an exact two-level
@@ -10,7 +10,7 @@ hierarchy:
 
 1. reshape the (``-inf``-padded) key row-major to ``(rows, cols)`` and
    take each row's top ``k`` — one *batched* top_k whose sort work
-   vectorizes across the sublane axis;
+   vectorizes across rows;
 2. merge with a single top_k of ``k`` over the ``rows * k`` survivors.
 
 Exactness: with the total order "value descending, index ascending"
@@ -35,15 +35,14 @@ __all__ = ["partial_top_k"]
 def partial_top_k(key: jnp.ndarray, k: int, rows: int | None = None):
     """Exact ``lax.top_k(key, k)`` via a two-level hierarchy.
 
-    ``key`` is a rank-1 array. Results (values and indices, ties
-    included) match ``jax.lax.top_k`` bit-for-bit. ``rows=None`` picks
-    the row count so level-1 rows hold ~max(2k, 256) columns — the
-    measured sweet spot on a v5e (flat 1.22 ms -> 0.23 ms at k=32 over
-    1e6). Falls back to the monolithic ``lax.top_k`` when the
+    ``key`` is a rank-1 array. Results (values and indices, ties included)
+    match ``jax.lax.top_k`` bit-for-bit. ``rows=None`` picks the row count
+    so level-1 rows hold ~max(2k, 256) columns (a choice not yet re-measured
+    on the GPU). Falls back to the monolithic ``lax.top_k`` when the
     hierarchy cannot win: short rows (``cols < 2 * k`` — level 1 would
-    nearly full-sort each row) or a tiny merge saving
-    (``rows * k >= n // 2``). The merge recurses, so very long keys
-    select through three levels before the final small sort.
+    nearly full-sort each row) or a tiny merge saving (``rows * k >= n //
+    2``). The merge recurses, so very long keys select through three levels
+    before the final small sort.
     """
     n = key.shape[0]
     if k >= n:

@@ -11,7 +11,7 @@ Two parallel axes map naturally onto hardware:
   work in ``safeopt_step`` is pointwise or row-parallel; the only
   cross-shard traffic is the handful of global reductions (safe-set
   max, maximizer width, argmax selection) and the expander search's
-  candidate gathers, all of which ride ICI as tiny collectives.
+  candidate gathers, all of them tiny collectives (NCCL on GPUs).
 
 * ``model`` — the GP factor rows (training points). The posterior
   ``V = Linv @ K(X, grid)`` contracts over this axis, so sharding
@@ -67,17 +67,16 @@ def make_hier_mesh(n_hosts: int, model_parallel: int = 1,
                    n_devices: Optional[int] = None, devices=None) -> Mesh:
     """Build a (dcn, data, model) mesh for a multi-host slice.
 
-    Axis order encodes the interconnect hierarchy (docs/design.md,
-    "Beyond one host"): the slowest-varying ``dcn`` axis strides
-    across hosts — ``jax.devices()`` orders devices host-major, so
-    consecutive chips of one host land in one ``dcn`` row — while
-    ``model`` is fastest-varying, keeping the factor contraction's
-    psum on a host's adjacent chips (ICI). The candidate grid shards
-    over BOTH ``(dcn, data)`` (see ``shard_grid``): its only
-    cross-host traffic is the step's scalar reductions. Campaign
-    fleets shard their campaign axis over ``dcn``
-    (``shard_campaigns(..., axis=DCN_AXIS)``) — zero cross-chip
-    traffic inside the loop, the ideal DCN shape.
+    Axis order follows the hosts (docs/design.md, "Beyond one
+    host"): the slowest-varying ``dcn`` axis strides across hosts —
+    ``jax.devices()`` orders devices host-major, so consecutive cards
+    of one host land in one ``dcn`` row — while ``model`` is
+    fastest-varying, keeping the factor contraction's psum within a
+    host. The candidate grid shards over BOTH ``(dcn, data)`` (see
+    ``shard_grid``): its only cross-host traffic is the step's scalar
+    reductions. Campaign fleets shard their campaign axis over
+    ``dcn`` (``shard_campaigns(..., axis=DCN_AXIS)``) — zero
+    cross-card traffic inside the loop.
 
     On an actual multi-host slice run ``jax.distributed.initialize()``
     per host first; here the same program is validated on a virtual

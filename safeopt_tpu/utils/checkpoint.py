@@ -4,7 +4,7 @@ The reference has no persistence at all (SURVEY.md section 5): an
 experiment "resumes" by manually reconstructing objects from data.
 Here the complete algorithm state — per-GP data (exact and sparse
 models), the global observation store, safe-set points, swarm
-estimates, algorithm settings (``expander_chunk``, ``use_pallas``,
+estimates, algorithm settings (``expander_chunk``,
 ``use_lipschitz``, ``max_iters``), and the PRNG key — serializes to a
 single ``.npz`` file, and ``load`` rebuilds a functionally identical
 optimizer (Cholesky factors are recomputed rather than stored: they
@@ -197,7 +197,6 @@ def save(opt, path: str) -> None:
                              else np.asarray(opt.lipschitz).tolist())
         meta["use_lipschitz"] = bool(opt.use_lipschitz)
         meta["expander_chunk"] = int(opt._expander_chunk)
-        meta["use_pallas"] = bool(opt._use_pallas)
         meta["exact_boundaries"] = bool(opt._exact_boundaries)
         meta["boundary_band"] = float(opt._boundary_band)
         meta["boundary_k"] = int(opt._boundary_k)
@@ -236,7 +235,7 @@ def load(path: str, beta=None):
     the 5e-3/8192 in effect when they were saved. This is deliberate —
     the old defaults were unsound (a band below the measured 3-pass
     noise ceiling lets knife-edge rows escape both the refinement and
-    the f64 oracle; docs/design.md) — but it means a resumed legacy
+    the f64 oracle) — but it means a resumed legacy
     run refines a wider band than it did before the upgrade. Pass the
     old values explicitly to ``SafeOpt`` after loading only if you
     must reproduce the legacy behavior bit-for-bit.
@@ -288,7 +287,6 @@ def load(path: str, beta=None):
                       num_contexts=meta["num_contexts"],
                       threshold=threshold, scaling=meta["scaling"],
                       expander_chunk=meta.get("expander_chunk", 32),
-                      use_pallas=meta.get("use_pallas"),
                       exact_boundaries=meta.get("exact_boundaries", False),
                       boundary_band=meta.get("boundary_band", 1e-3),
                       boundary_k=meta.get("boundary_k", 1024),

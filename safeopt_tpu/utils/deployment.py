@@ -10,7 +10,7 @@ all scalars remain *runtime arguments*, so a server can hot-swap
 observations and hyperparameters without re-exporting.
 
 The reference has no deployment story (a GPy object pickle at best);
-this is the TPU-native equivalent of shipping a compiled model.
+this is the accelerator-native equivalent of shipping a compiled model.
 
 Shapes are fixed at export (XLA compilation model): one artifact per
 (capacity, grid size, num GPs, chunk) configuration. The padded-state
@@ -142,8 +142,8 @@ def _check_kernels_serializable(kernels) -> None:
 
 
 def export_step(kernels, states, grid, fmin, beta, scaling, threshold,
-                *, chunk: int = 64, use_pallas: bool = False,
-                ucb: bool = False, path: Optional[str] = None,
+                *, chunk: int = 64, ucb: bool = False,
+                path: Optional[str] = None,
                 platforms: Optional[Sequence[str]] = None) -> bytes:
     """Serialize one fused SafeOpt iteration for the given shapes.
 
@@ -152,29 +152,15 @@ def export_step(kernels, states, grid, fmin, beta, scaling, threshold,
     fmin, beta, scaling, threshold)`` at call time (kernel
     hyperparameter leaves included, since kernels are pytrees).
 
-    ``platforms`` lowers for specific targets (e.g. ``['tpu']`` to
-    cross-compile an XLA-path TPU artifact from a CPU host); default is
-    the current backend. ``use_pallas=True`` embeds Mosaic custom calls
-    — TPU-only artifacts that must be exported ON a TPU host
-    (cross-compiling Pallas raises: interpret mode is chosen from the
-    tracing backend). Returns the serialized bytes; also written to
+    ``platforms`` lowers for specific targets (e.g. ``['cuda']`` to
+    cross-compile a GPU artifact from a CPU host); default is the
+    current backend. Returns the serialized bytes; also written to
     ``path`` when given.
     """
     from jax import export as jexport
 
     from ..algorithms.safe_opt_core import safeopt_step
     from ..config import with_matmul_precision
-
-    if use_pallas and platforms is not None and \
-            jax.default_backend() not in platforms:
-        # The Pallas kernels pick interpret mode from the TRACING
-        # backend; cross-compiling would silently serialize the
-        # interpreted (plain XLA) lowering instead of Mosaic kernels.
-        raise ValueError(
-            "use_pallas=True artifacts must be exported on the target "
-            f"platform (backend {jax.default_backend()!r}, requested "
-            f"platforms {tuple(platforms)!r}); export on a TPU host or "
-            "drop use_pallas")
 
     _register_serializations()
     _check_kernels_serializable(kernels)
@@ -183,8 +169,7 @@ def export_step(kernels, states, grid, fmin, beta, scaling, threshold,
     @with_matmul_precision
     def step(kernels, states, grid, fmin, beta, scaling, threshold):
         return safeopt_step(kernels, states, grid, fmin, beta, scaling,
-                            threshold, ucb=ucb, chunk=chunk,
-                            use_pallas=use_pallas)
+                            threshold, ucb=ucb, chunk=chunk)
 
     kwargs = {}
     if platforms is not None:

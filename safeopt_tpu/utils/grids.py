@@ -1,6 +1,6 @@
 """Candidate-grid construction.
 
-TPU-native counterpart of the reference's grid builder
+Accelerator-native counterpart of the reference's grid builder
 (/root/reference/safeopt/utilities.py:21-54). Row ordering follows
 NumPy ``meshgrid`` default 'xy' indexing exactly — trajectory parity
 depends on it (argmax index ties resolve by row order).

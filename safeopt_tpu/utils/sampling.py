@@ -1,6 +1,6 @@
 """GP-prior test-function sampling.
 
-TPU-native counterpart of the reference's test-problem generator
+Accelerator-native counterpart of the reference's test-problem generator
 (/root/reference/safeopt/utilities.py:57-143): draw one sample path of
 a GP prior on a grid and return a callable that evaluates the
 RKHS-interpolant (or linear interpolant) of that draw, with optional

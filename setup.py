@@ -5,7 +5,7 @@ from setuptools import find_packages, setup
 setup(
     name="safeopt-tpu",
     version="0.1.0",
-    description=("TPU-native safe Bayesian optimization: SafeOpt / "
+    description=("Accelerator-native safe Bayesian optimization: SafeOpt / "
                  "SafeOptSwarm with an in-repo JAX GP engine"),
     long_description=open("README.md").read(),
     long_description_content_type="text/markdown",

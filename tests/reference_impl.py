@@ -296,7 +296,7 @@ class RefSafeOpt:
     """Sequential-loop float64 SafeOpt, mirroring the reference algorithm
     (/root/reference/safeopt/gp_opt.py:281-712) on top of RefGP.
 
-    Used to record golden trajectories that the fused TPU implementation
+    Used to record golden trajectories that the fused device implementation
     must reproduce.
     """
 
@@ -596,7 +596,7 @@ class RefSafeOptSwarm:
     (cdist + cho_solve), PSO via ref_pso, fitness via
     ref_particle_fitness. Randomness is injected through
     ``draw_uniform(shape) -> U[0,1) array`` so lockstep parity tests
-    can feed the identical streams to the stepwise and fused TPU
+    can feed the identical streams to the stepwise and fused device
     paths. Index draws map uniforms to ``floor(u * safe_size)``
     (the convention all three implementations share; the reference
     itself uses the unseeded global-RNG ``np.random.randint``,

@@ -50,8 +50,7 @@ class TestKnifeEdgeCertification:
         gp = GPRegression(X, Y, RBF(1, variance=2.0, lengthscale=1.0),
                           noise_var=1e-4)
         opt = SafeOpt(gp, grid, fmin=[fmin], beta=beta,
-                      exact_boundaries=True, boundary_band=1e-3,
-                      use_pallas=False)
+                      exact_boundaries=True, boundary_band=1e-3)
         return opt, j
 
     @pytest.mark.parametrize("offset,expect_safe", [(-1e-9, True),
@@ -165,8 +164,7 @@ class TestOptimisticStepping:
             # safe; the oracle must say unsafe. Either way the band is
             # populated and the decision must equal the f64 truth.
             opt = SafeOpt(gp, grid, fmin=[l64 + 1e-9], beta=2.0,
-                          exact_boundaries=True, boundary_band=1e-3,
-                          use_pallas=False)
+                          exact_boundaries=True, boundary_band=1e-3)
             opt.optimize()
             assert opt._band_population > 0
             assert bool(opt.S[j]) is False
@@ -386,8 +384,7 @@ class TestKnifeEdgeWithCompositeKernel:
                 + Poly(1, variance=0.1, scale=0.05, bias=0.5, order=3.0)
             gp = GPRegression(X, Y, kern, noise_var=1e-4)
             opt = SafeOpt(gp, grid, fmin=[l64 + offset], beta=beta,
-                          exact_boundaries=True, boundary_band=1e-3,
-                          use_pallas=False)
+                          exact_boundaries=True, boundary_band=1e-3)
             opt.optimize()
             assert bool(opt.S[j]) is expect_safe
 
@@ -434,8 +431,7 @@ class TestSparseKnifeEdgeCertification:
             X, Y, RBF(1, variance=2.0, lengthscale=1.0),
             noise_var=1e-4, inducing=Z, jitter=jitter)
         opt = SafeOpt(gp, grid, fmin=[l64 + fmin_offset], beta=beta,
-                      exact_boundaries=True, boundary_band=1e-3,
-                      use_pallas=False)
+                      exact_boundaries=True, boundary_band=1e-3)
         return opt, j
 
     @pytest.mark.parametrize("offset,expect_safe", [(-1e-9, True),
@@ -494,12 +490,20 @@ class TestSparseKnifeEdgeCertification:
                     exact_boundaries=True)
 
 
+@pytest.fixture
+def on_gpu(monkeypatch):
+    """Make the platform helper report the GPU (the CPU still executes)."""
+    from safeopt_tpu import config
+
+    monkeypatch.setattr(config, "platform", lambda: "gpu")
+
+
 class TestAutoCertifiedPolicy:
-    """interval_precision='auto' (the default): on a real TPU at
-    capacity >= AUTO_CERTIFIED_MIN_CAP the certified 3-pass path is
-    measured faster than the plain 6-pass step (VERDICT r4 #1), so the
-    default constructor promotes it; everywhere else the plain path is
-    untouched. These tests pin the resolution matrix."""
+    """interval_precision='auto' (the default) resolves to the plain
+    path on every backend: the reduced-precision promotion was a
+    crossover of the retired chip, and on the GPU reduced precision
+    means TF32, whose interval noise ceiling has not been measured.
+    These tests pin the resolution matrix."""
 
     def _gp(self, capacity=16):
         X = np.array([[0.0], [0.5], [1.0]])
@@ -514,56 +518,57 @@ class TestAutoCertifiedPolicy:
         opt = SafeOpt(self._gp(capacity=512), self._grid(), fmin=[0.0])
         assert opt._interval_precision is None
         assert opt._exact_boundaries is False
-        assert opt._auto_certified is False
 
-    def test_tpu_large_cap_promotes_certified(self, monkeypatch):
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        opt = SafeOpt(self._gp(capacity=512), self._grid(), fmin=[0.0],
-                      use_pallas=False)
-        assert opt._interval_precision == "high"
-        assert opt._exact_boundaries is True
-        assert opt._auto_certified is True
-        assert opt._oracle == "device"        # on-device f64 settlement
-        assert opt._refine_k == 50            # auto head sizing: min(2048, N)
+    def test_gpu_large_cap_stays_plain(self, on_gpu):
+        opt = SafeOpt(self._gp(capacity=512), self._grid(), fmin=[0.0])
+        assert opt._interval_precision is None
+        assert opt._exact_boundaries is False
+        assert opt._refine_k == 0
 
-    @pytest.mark.parametrize("kwargs,why", [
-        (dict(exact_boundaries=False), "explicit opt-out wins"),
-        (dict(fmin=[-np.inf]), "unconstrained problem"),
-        (dict(capacity=64), "below the measured crossover"),
-        (dict(interval_precision=None), "explicit plain path"),
-    ])
-    def test_tpu_ineligible_stays_plain(self, monkeypatch, kwargs, why):
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        cap = kwargs.pop("capacity", 512)
-        fmin = kwargs.pop("fmin", [0.0])
-        opt = SafeOpt(self._gp(capacity=cap), self._grid(), fmin=fmin,
-                      use_pallas=False, **kwargs)
-        assert opt._interval_precision is None, why
-        assert opt._auto_certified is False, why
+    @pytest.mark.parametrize("precision", ["high", "default"])
+    @pytest.mark.parametrize("capacity", [64, 512])
+    def test_gpu_refuses_reduced_precision(self, on_gpu, precision,
+                                           capacity):
+        with pytest.raises(ValueError, match="not been measured"):
+            SafeOpt(self._gp(capacity=capacity), self._grid(),
+                    fmin=[0.0], interval_precision=precision)
+
+    @pytest.mark.parametrize("gpu", [False, True], ids=["cpu", "gpu"])
+    @pytest.mark.parametrize("capacity", [64, 512])
+    def test_no_promotion(self, monkeypatch, gpu, capacity):
+        from safeopt_tpu import config
+
+        if gpu:
+            monkeypatch.setattr(config, "platform", lambda: "gpu")
+        opt = SafeOpt(self._gp(capacity=capacity), self._grid(),
+                      fmin=[0.0], interval_precision="auto")
+        assert opt._interval_precision is None
+        assert opt._exact_boundaries is False
+        assert opt._boundary_k == 50          # min(1024, N)
 
     def test_explicit_precision_implies_certification(self):
         # explicit reduced precision with exact_boundaries left unset
-        # resolves to certified rather than raising
+        # resolves to certified rather than raising (CPU only)
         opt = SafeOpt(self._gp(), self._grid(), fmin=[0.0],
-                      interval_precision="high", use_pallas=False)
+                      interval_precision="high")
         assert opt._exact_boundaries is True
         assert opt._interval_precision == "high"
 
     def test_explicit_false_with_precision_still_raises(self):
         with pytest.raises(ValueError, match="exact_boundaries"):
             SafeOpt(self._gp(), self._grid(), fmin=[0.0],
-                    interval_precision="high", exact_boundaries=False,
-                    use_pallas=False)
+                    interval_precision="high", exact_boundaries=False)
 
-    def test_auto_certified_step_runs_on_cpu(self, monkeypatch):
-        """The resolved config must actually execute (CPU backend used
-        as the executor; the policy is forced on via monkeypatch)."""
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        opt = SafeOpt(self._gp(capacity=512), self._grid(), fmin=[0.0],
-                      use_pallas=False)
-        assert opt._auto_certified
+    def test_gpu_default_step_runs(self, on_gpu):
+        """The GPU resolution must execute (the CPU backend stands in as
+        the executor): plain path, device oracle when certified."""
+        opt = SafeOpt(self._gp(capacity=512), self._grid(), fmin=[0.0])
         x = opt.optimize()
         assert np.isfinite(x).all()
+        cert = SafeOpt(self._gp(capacity=512), self._grid(), fmin=[0.0],
+                       exact_boundaries=True)
+        assert cert._oracle == "device"
+        assert np.isfinite(cert.optimize()).all()
 
 
 class TestDeviceOracle:
@@ -592,11 +597,9 @@ class TestDeviceOracle:
     def test_matches_host_oracle_path(self, sparse):
         grid = self._grid()
         host = SafeOpt(self._gps(sparse), grid, fmin=[1.0],
-                       exact_boundaries=True, oracle="host",
-                       use_pallas=False)
+                       exact_boundaries=True, oracle="host")
         dev = SafeOpt(self._gps(sparse), grid, fmin=[1.0],
-                      exact_boundaries=True, oracle="device",
-                      use_pallas=False)
+                      exact_boundaries=True, oracle="device")
         x_h = host.optimize()
         x_d = dev.optimize()
         np.testing.assert_array_equal(x_d, x_h)
@@ -691,7 +694,7 @@ class TestDeviceOracle:
 
     def test_auto_resolves_host_on_cpu(self):
         opt = SafeOpt(self._gps(), self._grid(), fmin=[1.0],
-                      exact_boundaries=True, use_pallas=False)
+                      exact_boundaries=True)
         assert opt._oracle == "host"
 
     def test_validation(self):
@@ -702,39 +705,26 @@ class TestDeviceOracle:
     def test_reduced_precision_with_device_oracle(self):
         grid = self._grid()
         host = SafeOpt(self._gps(), grid, fmin=[1.0],
-                       interval_precision="high", oracle="host",
-                       use_pallas=False)
+                       interval_precision="high", oracle="host")
         dev = SafeOpt(self._gps(), grid, fmin=[1.0],
-                      interval_precision="high", oracle="device",
-                      use_pallas=False)
+                      interval_precision="high", oracle="device")
         x_h = host.optimize()
         x_d = dev.optimize()
         np.testing.assert_array_equal(x_d, x_h)
         np.testing.assert_array_equal(dev.S, host.S)
 
-    def test_auto_boundary_k(self, monkeypatch=None):
-        """boundary_k=None resolves to 1024 plain / 2048 under the
-        auto-certified promotion (round 5: the cap512 band overflowed
-        the fixed 1024 budget every iteration)."""
-        import pytest as _pytest
-        mp = _pytest.MonkeyPatch()
-        try:
-            gp = self._gps()
-            grid = linearly_spaced_combinations(
-                [(-2.0, 2.0), (-2.0, 2.0)], 40)
-            plain = SafeOpt(gp, grid, fmin=[1.0], use_pallas=False)
-            assert plain._boundary_k == min(1024, 1600)
-            mp.setattr(jax, "default_backend", lambda: "tpu")
-            rng = np.random.default_rng(2)
-            X = rng.uniform(-2.0, 2.0, size=(60, 2))
-            Y = (1.0 + np.exp(-0.5 * np.sum(X ** 2, axis=1)))[:, None]
-            big = GPRegression(X, Y, RBF(2, variance=2.0),
-                               noise_var=1e-4, capacity=512)
-            auto = SafeOpt(big, grid, fmin=[1.0], use_pallas=False)
-            assert auto._auto_certified
-            assert auto._boundary_k == min(2048, 1600)
-            explicit = SafeOpt(big, grid, fmin=[1.0], boundary_k=256,
-                               use_pallas=False)
-            assert explicit._boundary_k == 256
-        finally:
-            mp.undo()
+    def test_auto_boundary_k(self, on_gpu):
+        """boundary_k=None resolves to 1024 on every backend; an
+        explicit value wins."""
+        gp = self._gps()
+        grid = linearly_spaced_combinations(
+            [(-2.0, 2.0), (-2.0, 2.0)], 40)
+        plain = SafeOpt(gp, grid, fmin=[1.0])
+        assert plain._boundary_k == min(1024, 1600)
+        explicit = SafeOpt(gp, grid, fmin=[1.0], boundary_k=256)
+        assert explicit._boundary_k == 256
+
+    def test_auto_resolves_device_on_gpu(self, on_gpu):
+        opt = SafeOpt(self._gps(), self._grid(), fmin=[1.0],
+                      exact_boundaries=True)
+        assert opt._oracle == "device"

@@ -75,12 +75,12 @@ def test_swarm_roundtrip(tmp_path):
 
 
 def test_safeopt_settings_roundtrip(tmp_path):
-    """expander_chunk / use_pallas / use_lipschitz survive a roundtrip."""
+    """expander_chunk / use_lipschitz survive a roundtrip."""
     gp = GPRegression(np.array([[0.0]]), np.array([[1.0]]),
                       RBF(1, variance=2.0), noise_var=0.01)
     grid = linearly_spaced_combinations([(-3.0, 3.0)], 100)
     opt = SafeOpt(gp, grid, fmin=[0.0], lipschitz=[1.5],
-                  expander_chunk=8, use_pallas=False)
+                  expander_chunk=8)
     assert opt.use_lipschitz
     opt.use_lipschitz = False   # toggle away from the constructor default
 
@@ -88,7 +88,6 @@ def test_safeopt_settings_roundtrip(tmp_path):
     checkpoint.save(opt, path)
     opt2 = checkpoint.load(path)
     assert opt2._expander_chunk == 8
-    assert opt2._use_pallas is False
     assert opt2.use_lipschitz is False
     assert_allclose(opt2.lipschitz, [1.5])
 
@@ -102,7 +101,7 @@ def test_safeopt_oracle_roundtrip(tmp_path):
                       RBF(1, variance=2.0), noise_var=0.01)
     grid = linearly_spaced_combinations([(-3.0, 3.0)], 50)
     opt = SafeOpt(gp, grid, fmin=[0.0], exact_boundaries=True,
-                  oracle="device", use_pallas=False)
+                  oracle="device")
     path = str(tmp_path / "ckpt_oracle.npz")
     checkpoint.save(opt, path)
     opt2 = checkpoint.load(path)

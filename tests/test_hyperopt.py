@@ -291,8 +291,8 @@ def test_sparse_lml_gradient_wrt_inducing_matches_fd():
 
 
 def test_accel_restarts_refused():
-    """device='accel' with restarts>0 crashes the TPU runtime (round-5
-    measurement); the API must refuse rather than kill the session."""
+    """device='accel' with restarts>0 (the vmapped restart batch) has
+    not been run on the GPU yet; the API refuses it."""
     import numpy as np
     import pytest
 

@@ -4,8 +4,8 @@ Beyond the reference's consumed GPy surface (SURVEY.md section 2.8
 lists RBF / Matern-3/2 / product); these are the adjacent GPy features
 real users reach for (``k1 + k2``, offset, jitter, OU processes).
 Checks device grams against the host f64 mirror, full GP regression
-against a direct NumPy solve, the fused Pallas paths, hyperparameter
-fitting, and checkpoint round-trips.
+against a direct NumPy solve, the fused step's interval pass,
+hyperparameter fitting, and checkpoint round-trips.
 """
 
 import numpy as np
@@ -15,9 +15,20 @@ from numpy.testing import assert_allclose
 from safeopt_tpu.gp import (Bias, Exponential, GPRegression, Matern32,
                             RBF, Sum, White)
 from safeopt_tpu.gp.host_math import np_kdiag, np_kernel
-from safeopt_tpu.gp.regression import gp_predict
 
 RNG = np.random.default_rng(11)
+
+
+def _interval_pass(kern, state, grid, beta):
+    """(l, u) of one GP from the fused step's grid interval pass."""
+    import jax.numpy as jnp
+
+    from safeopt_tpu.algorithms.safe_opt_core import _confidence_intervals
+
+    Q = _confidence_intervals((kern,), (state,),
+                              jnp.asarray(grid, state.X.dtype),
+                              jnp.asarray(beta, state.X.dtype))[0]
+    return np.asarray(Q[:, 0]), np.asarray(Q[:, 1])
 
 
 def _algebras():
@@ -99,56 +110,19 @@ def test_incremental_append_pop_with_sum_kernel():
 
 @pytest.mark.parametrize("name,make", _algebras())
 def test_fused_intervals_extended_algebra(name, make):
-    """Sum-of-products algebras through the fused Pallas interval path
-    (interpret mode on CPU; Mosaic on TPU)."""
-    from safeopt_tpu.ops import fused_intervals, supports_kernel
-
+    """Sum-of-products algebras through the fused step's grid interval
+    pass, against the host float64 oracle."""
     kern = make()
-    assert supports_kernel(kern)
     X = RNG.uniform(-2, 2, size=(10, 2))
     Y = RNG.normal(size=(10, 1))
     gp = GPRegression(X, Y, kern, noise_var=0.01)
 
     grid = RNG.uniform(-3, 3, size=(300, 2))
     beta = 2.0
-    l, u = fused_intervals(kern, gp.state, np.asarray(grid, float), beta,
-                           block=128)
-    mu, var = gp_predict(kern, gp.state, grid)
-    assert_allclose(np.asarray(l),
-                    np.asarray(mu) - beta * np.sqrt(np.asarray(var)),
-                    rtol=1e-9, atol=1e-10)
-    assert_allclose(np.asarray(u),
-                    np.asarray(mu) + beta * np.sqrt(np.asarray(var)),
-                    rtol=1e-9, atol=1e-10)
-
-
-def test_white_not_fused():
-    from safeopt_tpu.ops import supports_kernel
-    assert not supports_kernel(White(2))
-    assert not supports_kernel(RBF(2) + White(2))
-
-
-def test_safeopt_step_sum_kernel_pallas_parity():
-    """Full fused step with a Sum kernel: Pallas equals XLA decisions."""
-    import jax.numpy as jnp
-
-    from safeopt_tpu.algorithms.safe_opt_core import safeopt_step
-
-    kern = RBF(1, variance=2.0, lengthscale=0.9) + Bias(1, variance=0.3)
-    gp = GPRegression(np.array([[0.0], [0.5]]), np.array([[1.2], [0.9]]),
-                      kern, noise_var=0.01)
-    grid = np.linspace(-4, 4, 256)[:, None]
-    scaling = float(np.sqrt(np.asarray(kern.Kdiag(np.zeros((1, 1))))[0]))
-    args = ((kern,), (gp.state,), jnp.asarray(grid),
-            jnp.asarray([0.0]), jnp.asarray(2.0), jnp.asarray([scaling]),
-            jnp.asarray([0.0]))
-    r1 = safeopt_step(*args, chunk=16, use_pallas=False)
-    r2 = safeopt_step(*args, chunk=16, use_pallas=True)
-    assert_allclose(np.asarray(r2.Q), np.asarray(r1.Q), rtol=1e-9,
-                    atol=1e-10)
-    np.testing.assert_array_equal(np.asarray(r2.S), np.asarray(r1.S))
-    np.testing.assert_array_equal(np.asarray(r2.G), np.asarray(r1.G))
-    assert int(r2.next_idx) == int(r1.next_idx)
+    l, u = _interval_pass(kern, gp.state, grid, beta)
+    mu, var = gp.predict_f64(grid)
+    assert_allclose(l, mu - beta * np.sqrt(var), rtol=1e-9, atol=1e-10)
+    assert_allclose(u, mu + beta * np.sqrt(var), rtol=1e-9, atol=1e-10)
 
 
 def test_hyperopt_sum_kernel():
@@ -633,13 +607,6 @@ class TestLinear:
         np.testing.assert_array_equal(np.asarray(out.S), np.asarray(ref.S))
         assert int(out.next_idx) == int(ref.next_idx)
 
-    def test_linear_not_fused(self):
-        from safeopt_tpu.gp import Linear, RBF
-        from safeopt_tpu.ops.fused_posterior import supports_kernel
-
-        assert not supports_kernel(Linear(1))
-        assert not supports_kernel(RBF(1) * Linear(1))
-        assert not supports_kernel(RBF(1) + Linear(1))
 
 
 # ---------------------------------------------------------------------------
@@ -649,7 +616,7 @@ class TestLinear:
 
 class TestCosine:
     """GPy.kern.Cosine mirror: k(r) = variance * cos(r), through every
-    layer (device, host f64, native C++, fused Pallas, hyperopt,
+    layer (device, host f64, native C++, fused step, hyperopt,
     checkpoint, export, SafeOpt lockstep)."""
 
     def test_matches_direct_formula(self):
@@ -681,28 +648,21 @@ class TestCosine:
             assert_allclose(hf._gram(X, X), 1.3 * np.cos(r), rtol=1e-12)
 
     def test_fused_intervals_cosine(self):
-        """Cosine rides the fused Pallas interval path like the other
-        stationary kernels (interpret mode on CPU; Mosaic on TPU)."""
+        """Cosine through the fused step's grid interval pass like the
+        other stationary kernels, against the host float64 oracle."""
         from safeopt_tpu.gp import Cosine, RBF
-        from safeopt_tpu.ops import fused_intervals, supports_kernel
 
         kern = Cosine(1, variance=1.5, lengthscale=1.1) \
             * RBF(1, lengthscale=5.0)
-        assert supports_kernel(kern)
         rng = np.random.default_rng(2)
         X = rng.uniform(-2, 2, size=(9, 1))
         Y = rng.normal(size=(9, 1))
         gp = GPRegression(X, Y, kern, noise_var=0.01)
         grid = rng.uniform(-3, 3, size=(256, 1))
-        l, u = fused_intervals(kern, gp.state, np.asarray(grid, float),
-                               2.0, block=128)
-        mu, var = gp_predict(kern, gp.state, grid)
-        assert_allclose(np.asarray(l),
-                        np.asarray(mu) - 2.0 * np.sqrt(np.asarray(var)),
-                        rtol=1e-9, atol=1e-10)
-        assert_allclose(np.asarray(u),
-                        np.asarray(mu) + 2.0 * np.sqrt(np.asarray(var)),
-                        rtol=1e-9, atol=1e-10)
+        l, u = _interval_pass(kern, gp.state, grid, 2.0)
+        mu, var = gp.predict_f64(grid)
+        assert_allclose(l, mu - 2.0 * np.sqrt(var), rtol=1e-9, atol=1e-10)
+        assert_allclose(u, mu + 2.0 * np.sqrt(var), rtol=1e-9, atol=1e-10)
 
     def test_trajectory_lockstep_quasiperiodic(self):
         from safeopt_tpu import SafeOpt, linearly_spaced_combinations
@@ -735,35 +695,6 @@ class TestCosine:
             y = np.array([[float(f(x)[0])]])
             opt.add_new_data_point(x, y)
             ref.add_new_data_point(x, y)
-
-    def test_safeopt_step_batched_cosine_pallas_parity(self):
-        """Two same-structure Cosine GPs take the BATCHED fused path
-        (single-kind kernel stack): Pallas equals XLA decisions."""
-        import jax.numpy as jnp
-
-        from safeopt_tpu.algorithms.safe_opt_core import safeopt_step
-        from safeopt_tpu.gp import Cosine
-
-        rng = np.random.default_rng(10)
-        X = np.array([[0.0], [0.4], [-0.6]])
-        k1 = Cosine(1, variance=2.0, lengthscale=1.0)
-        k2 = Cosine(1, variance=1.5, lengthscale=1.4)
-        gp1 = GPRegression(X, rng.normal(size=(3, 1)) + 1.5, k1,
-                           noise_var=0.01)
-        gp2 = GPRegression(X, rng.normal(size=(3, 1)) + 1.5, k2,
-                           noise_var=0.01)
-        grid = np.linspace(-3, 3, 256)[:, None]
-        args = ((k1, k2), (gp1.state, gp2.state), jnp.asarray(grid),
-                jnp.asarray([0.0, 0.0]), jnp.asarray(2.0),
-                jnp.asarray([np.sqrt(2.0), np.sqrt(1.5)]),
-                jnp.asarray([0.0, 0.0]))
-        r1 = safeopt_step(*args, chunk=16, use_pallas=False)
-        r2 = safeopt_step(*args, chunk=16, use_pallas=True)
-        assert_allclose(np.asarray(r2.Q), np.asarray(r1.Q), rtol=1e-9,
-                        atol=1e-10)
-        np.testing.assert_array_equal(np.asarray(r2.S), np.asarray(r1.S))
-        np.testing.assert_array_equal(np.asarray(r2.G), np.asarray(r1.G))
-        assert int(r2.next_idx) == int(r1.next_idx)
 
     def test_checkpoint_roundtrip(self, tmp_path):
         from safeopt_tpu import SafeOpt, linearly_spaced_combinations
@@ -841,12 +772,6 @@ class TestPoly:
             assert hf._native_kind == "poly"
             assert_allclose(hf._gram(X, X), ref, rtol=1e-12)
 
-    def test_not_fused(self):
-        from safeopt_tpu.gp import Poly, RBF
-        from safeopt_tpu.ops.fused_posterior import supports_kernel
-
-        assert not supports_kernel(Poly(1))
-        assert not supports_kernel(RBF(1) + Poly(1))
 
     def test_trajectory_lockstep_with_sum_kernel(self):
         from safeopt_tpu import SafeOpt, linearly_spaced_combinations
@@ -982,12 +907,6 @@ class TestMLP:
             assert hf._native_kind == "mlp"
             assert_allclose(hf._gram(X, X), ref, rtol=1e-12)
 
-    def test_not_fused(self):
-        from safeopt_tpu.gp import MLP, RBF
-        from safeopt_tpu.ops.fused_posterior import supports_kernel
-
-        assert not supports_kernel(MLP(1))
-        assert not supports_kernel(RBF(1) + MLP(1))
 
     def test_trajectory_lockstep(self):
         from safeopt_tpu import SafeOpt, linearly_spaced_combinations

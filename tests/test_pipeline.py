@@ -128,7 +128,7 @@ class TestGridSafeOptPipeline:
                           noise_var=1e-4)
         grid = linearly_spaced_combinations(
             [(-2.0, 2.0), (-2.0, 2.0)], 25)
-        return SafeOpt(gp, grid, fmin=[1.0], use_pallas=False, **kw)
+        return SafeOpt(gp, grid, fmin=[1.0], **kw)
 
     @staticmethod
     def _plant(x):

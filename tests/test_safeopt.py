@@ -4,7 +4,7 @@ Covers the four shipped reference configurations (SURVEY.md section
 2.9): 1-D single constraint, 1-D multi-constraint, 2-D, and contextual
 optimization — plus the Lipschitz variant, safe-UCB mode, and
 get_maximum. Each test runs the full BO loop on a deterministic RKHS
-test function and asserts the fused TPU implementation visits exactly
+test function and asserts the fused device implementation visits exactly
 the same points as the sequential reference.
 """
 

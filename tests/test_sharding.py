@@ -224,8 +224,7 @@ def test_hier_fleet_over_dcn_matches_solo():
 
 def test_sharded_full_expander_sets_matches(problem):
     """full_sets classification is padding-aware and shard-invariant
-    (round-2 fix: full_expander_sets now takes num_valid/use_pallas
-    like safeopt_step)."""
+    (full_expander_sets takes num_valid like safeopt_step)."""
     from safeopt_tpu.algorithms.safe_opt_core import full_expander_sets
 
     a = problem

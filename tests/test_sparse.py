@@ -228,12 +228,11 @@ def test_sparse_lml_matches_dense_lml_when_z_equals_x():
 
 
 def test_pseudo_factor_is_lower_triangular():
-    """The GPState contract the fused interval kernel relies on: the
-    pseudo-factor must be LOWER-TRIANGULAR (the blocked multiply skips
-    strictly-upper tile products). A symmetric dense root silently
-    loses half its mass once m spans >1 MXU tile — the round-3 m=256
-    bug. R^T R must still equal B (any such factor preserves the
-    posterior)."""
+    """The GPState contract: the pseudo-factor must be
+    LOWER-TRIANGULAR like the exact model's inverse Cholesky factor (a
+    blocked multiply that skips strictly-upper tiles would silently
+    lose half of a dense root). R^T R must still equal B (any such
+    factor preserves the posterior)."""
     X, Y = _data(80, seed=5)
     kern = RBF(1, variance=2.0, lengthscale=1.0)
     gp = SparseGPRegression(X, Y, kern, noise_var=0.01, inducing=20)
@@ -256,36 +255,6 @@ def test_pseudo_factor_is_lower_triangular():
     B = (evecs * np.maximum(evals, 0.0)) @ evecs.T
     assert_allclose(R.T @ R, B, rtol=1e-8,
                     atol=1e-10 * np.abs(B).max())
-
-
-def test_sparse_pallas_intervals_match_xla_above_one_tile():
-    """m > 128 forces the multi-tile blocked multiply whose tile-skip
-    broke on the old dense symmetric pseudo-factor (Pallas claimed
-    ~480k extra safe points at m=256 on hardware). Interpret-mode
-    Pallas executes the identical skip logic on CPU."""
-    import jax.numpy as jnp
-
-    from safeopt_tpu.ops.fused_posterior import fused_intervals
-
-    rng = np.random.default_rng(11)
-    n, m = 600, 160                     # cap 256 -> 2x2 factor tiles
-    X = rng.uniform(-4.0, 4.0, size=(n, 2))
-    Y = (2.0 * np.exp(-0.5 * np.sum(X ** 2, axis=1))
-         + 0.05 * rng.normal(size=n))[:, None]
-    kern = RBF(2, variance=2.0, lengthscale=1.0)
-    gp = SparseGPRegression(X, Y, kern, noise_var=0.0025, inducing=m)
-    assert gp.state.Linv.shape[0] >= 256
-
-    grid = jnp.asarray(rng.uniform(-5.0, 5.0, size=(512, 2)),
-                       gp.state.X.dtype)
-    l_p, u_p = fused_intervals(kern, gp.state, grid, 2.0, block=128)
-
-    mu_d, var_d = gp_predict(kern, gp.state, grid)
-    spread = 2.0 * np.sqrt(np.asarray(var_d))
-    assert_allclose(np.asarray(l_p), np.asarray(mu_d) - spread,
-                    rtol=1e-4, atol=1e-5)
-    assert_allclose(np.asarray(u_p), np.asarray(mu_d) + spread,
-                    rtol=1e-4, atol=1e-5)
 
 
 def test_optimize_inducing_moves_z_to_informative_locations():
